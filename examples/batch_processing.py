@@ -15,7 +15,7 @@ import time
 
 import numpy as np
 
-from fhe_tpu import FHE
+from fhe_jax import FHE
 
 
 def main() -> int:

@@ -22,8 +22,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np
 import jax.numpy as jnp
 
-from fhe_tpu import FHE
-from fhe_tpu.scheme.types import Plaintext
+from fhe_jax import FHE
+from fhe_jax.scheme.types import Plaintext
 
 
 def main() -> int:

@@ -17,7 +17,7 @@ import sys
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np
 
-from fhe_tpu import FHE
+from fhe_jax import FHE
 
 
 def check(label, got, expected):

@@ -1,11 +1,11 @@
-// fhecore — native host runtime for fhe_tpu.
+// fhecore — native host runtime for fhe_jax.
 //
 // C++ implementation of the host-side number theory the reference keeps in
 // its CUDA host code (prime generation `src/rns.cu:183-209`, primitive roots
 // and twiddle precompute `src/ntt.cu:77-119`, Montgomery parameter setup
 // `src/bigint.cu:23-55` — all stubbed there, correct here).  The Python layer
-// (`fhe_tpu/utils/native.py`) loads this via ctypes and falls back to the
-// pure-Python implementations in `fhe_tpu/primes.py` when absent; results are
+// (`fhe_jax/utils/native.py`) loads this via ctypes and falls back to the
+// pure-Python implementations in `fhe_jax/primes.py` when absent; results are
 // bit-identical by construction (tests/test_native.py asserts it).
 //
 // Everything is exact 64/128-bit integer arithmetic; no floating point.

@@ -1,5 +1,5 @@
 #!/usr/bin/env bash
-# Benchmark runner — TPU counterpart of the reference's scripts/benchmark.sh:
+# Benchmark runner — counterpart of the reference's scripts/benchmark.sh:
 # runs bench.py, captures device info, and persists a timestamped report.
 set -euo pipefail
 
@@ -10,7 +10,7 @@ STAMP="$(date +%Y%m%d_%H%M%S)"
 REPORT="$REPORT_DIR/benchmark_$STAMP.txt"
 
 {
-    echo "=== fhe_tpu benchmark report ==="
+    echo "=== fhe_jax benchmark report ==="
     echo "date: $(date -Is)"
     echo "host: $(hostname)"
     echo

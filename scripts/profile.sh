@@ -1,5 +1,5 @@
 #!/usr/bin/env bash
-# Profiling driver — TPU counterpart of the reference's scripts/profile.sh
+# Profiling driver — counterpart of the reference's scripts/profile.sh
 # (which wraps `nsys profile --trace=cuda,...`): wraps the benchmark in a
 # jax.profiler trace and reports where to open it.
 set -euo pipefail

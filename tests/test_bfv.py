@@ -13,10 +13,10 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from fhe_tpu import FHE, oracle
-from fhe_tpu.params import SecurityParams, make_scheme_params
-from fhe_tpu.scheme import bfv
-from fhe_tpu.ops import rns as _rns
+from fhe_jax import FHE, oracle
+from fhe_jax.params import SecurityParams, make_scheme_params
+from fhe_jax.scheme import bfv
+from fhe_jax.ops import rns as _rns
 
 PARAMS = make_scheme_params(
     SecurityParams(poly_degree=256, log_q=120, hamming_weight=32))
@@ -209,7 +209,7 @@ def test_hoisted_rotations_match_sequential(fhe, keys):
     apply_galois.  (Not bit-identical: on sign-flipped coefficients the
     hoisted digits are the -d representatives rather than q_j - d — both
     valid gadget decompositions of the same automorphism.)"""
-    from fhe_tpu.scheme import bfv as _bfv
+    from fhe_jax.scheme import bfv as _bfv
 
     pk, sk, rlk = keys
     m = 2 * fhe.params.n
@@ -298,29 +298,34 @@ def test_sum_slots(fhe, keys):
     assert int(out[0]) == total and int(out[n - 1]) == total
 
 
-def test_galois_folded_factorization_matches_gather():
+@pytest.mark.parametrize("n", [1024, 2048, 8192, 16384])
+def test_galois_folded_factorization_matches_gather(n):
     """The folded-affine automorphism (context.galois_fold_tables +
     bfv._galois_coeff_folded) must equal the plain permutation gather for
-    every ring size it activates on and a spread of odd elements."""
-    import numpy as np
-    import jax.numpy as jnp
-    from fhe_tpu.ops import modmath as mm
-    from fhe_tpu.scheme import bfv as _bfv
-    from fhe_tpu.scheme import context as _context
+    every default Galois element of each ring size it activates on, plus
+    a few elements outside the default set."""
+    from fhe_jax.scheme import bfv as _bfv
+    from fhe_jax.scheme import context as _context
 
-    rng = np.random.default_rng(17)
+    rng = np.random.default_rng(n)
     p = np.uint32(1073479681)
-    for n in (1024, 2048, 8192, 16384):
-        x = jnp.asarray(rng.integers(0, p, (2, 3, n), dtype=np.uint32))
-        for g in (3, 9, pow(3, 5, 2 * n), 2 * n - 1, pow(3, -1, 2 * n)):
-            ft = _context.galois_fold_tables(n, int(g))
-            assert ft is not None, (n, g)
-            got = np.asarray(_bfv._galois_coeff_folded(
-                x, ft, jnp.asarray(p)[None, None, None, None]))
-            src, neg = _context.galois_permutation(n, int(g))
-            gat = np.asarray(x)[:, :, src]
-            want = np.where(neg[None, None, :],
-                            np.where(gat == 0, gat, p - gat), gat)
-            np.testing.assert_array_equal(got, want, err_msg=f"n={n} g={g}")
-    # small rings must fall back (no folded tables)
+    x = jnp.asarray(rng.integers(0, p, (2, 3, n), dtype=np.uint32))
+    extra = (9, pow(3, 5, 2 * n), pow(3, -3, 2 * n))
+    for g in _context.default_galois_elements(n) + extra:
+        ft = _context.galois_fold_tables(n, int(g))
+        assert ft is not None, (n, g)
+        got = np.asarray(_bfv._galois_coeff_folded(
+            x, ft, jnp.asarray(p)[None, None, None, None]))
+        src, neg = _context.galois_permutation(n, int(g))
+        gat = np.asarray(x)[:, :, src]
+        want = np.where(neg[None, None, :],
+                        np.where(gat == 0, gat, p - gat), gat)
+        np.testing.assert_array_equal(got, want, err_msg=f"n={n} g={g}")
+
+
+def test_galois_small_rings_use_the_plain_gather():
+    """Below n=1024 there are no folded tables, so _apply_galois_coeff
+    takes the plain gather path."""
+    from fhe_jax.scheme import context as _context
+
     assert _context.galois_fold_tables(512, 3) is None

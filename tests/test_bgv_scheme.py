@@ -10,10 +10,10 @@ import numpy as np
 import pytest
 import jax
 
-from fhe_tpu import FHE, oracle
-from fhe_tpu.params import SecurityParams, make_scheme_params
-from fhe_tpu.ops import rns as _rns
-from fhe_tpu.scheme import bgv
+from fhe_jax import FHE, oracle
+from fhe_jax.params import SecurityParams, make_scheme_params
+from fhe_jax.ops import rns as _rns
+from fhe_jax.scheme import bgv
 
 PARAMS = make_scheme_params(
     SecurityParams(poly_degree=256, log_q=120, hamming_weight=32))

@@ -1,13 +1,13 @@
 """checkify-based residue-range sanitizer tests (SURVEY.md §5 'race
-detection/sanitizers': the TPU-native equivalents of compute-sanitizer)."""
+detection/sanitizers': the JAX equivalents of compute-sanitizer)."""
 
 import jax.numpy as jnp
 import pytest
 from jax.experimental import checkify
 
-from fhe_tpu import FHE
-from fhe_tpu.scheme import bfv
-from fhe_tpu.utils import debug
+from fhe_jax import FHE
+from fhe_jax.scheme import bfv
+from fhe_jax.utils import debug
 
 
 @pytest.fixture(scope="module")

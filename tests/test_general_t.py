@@ -1,4 +1,4 @@
-"""Arbitrary NTT-friendly plaintext modulus t (VERDICT round-1 item 3).
+"""Arbitrary NTT-friendly plaintext modulus t.
 
 The reference carries t as a SchemeParams field (include/fhe.cuh:24-39) but
 only ever instantiates t = 65537; round 1 of this library hard-coded it.
@@ -15,10 +15,10 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from fhe_tpu import FHE, oracle
-from fhe_tpu.params import SecurityParams, make_scheme_params
-from fhe_tpu.ops import rns
-from fhe_tpu.scheme import encoder as _encoder
+from fhe_jax import FHE, oracle
+from fhe_jax.params import SecurityParams, make_scheme_params
+from fhe_jax.ops import rns
+from fhe_jax.scheme import encoder as _encoder
 
 T_ALT = 786433  # 3 * 2^18 + 1
 

@@ -2,13 +2,13 @@
 (tests/test_fhe.cu:275-318 benchmarks N=8192, log q=218).  Pins the batched
 key-switch inner product (bfv._keyswitch_inner) at a digit count where the
 round-1 serial loop was the critical path, plus a leveled chain across many
-levels.  n is kept small for CPU CI; the TPU bench runs the full-size config.
+levels.  n is kept small for CPU CI; bench.py runs the full-size config.
 """
 
 import numpy as np
 
-from fhe_tpu import FHE
-from fhe_tpu.params import SecurityParams, make_scheme_params
+from fhe_jax import FHE
+from fhe_jax.params import SecurityParams, make_scheme_params
 
 PARAMS = make_scheme_params(SecurityParams(
     poly_degree=256, log_q=218, lambda_=0, hamming_weight=16))

@@ -11,8 +11,8 @@ docstring), so correctness holds with no new number theory on device.
 import numpy as np
 import pytest
 
-from fhe_tpu import FHE
-from fhe_tpu.params import SecurityParams, make_scheme_params
+from fhe_jax import FHE
+from fhe_jax.params import SecurityParams, make_scheme_params
 
 
 def _mk(scheme="bfv", log_q=120, omega=2, n=256, hw=16, seed=7):
@@ -75,7 +75,7 @@ def test_leveled_omega2_alignment():
     level 2 (kl=4, kd=2) works, level 1 (kl=5) raises.  (A level where only
     ONE group survives is mathematically useless — the digit spans the
     whole modulus, so key-switch noise >= q_L; keep kd_l >= 2.)"""
-    from fhe_tpu.scheme import bfv
+    from fhe_jax.scheme import bfv
     fhe = _mk(log_q=180)
     assert fhe.params.k == 6
     pk, sk = fhe.keygen()
@@ -112,88 +112,3 @@ def test_noise_budget_omega2_tracks_measurement():
         f"tracked {float(ct.noise_budget):.2f} vs exact {exact:.2f}")
     got = fhe.decode(fhe.decrypt(ct, sk)).astype(np.int64)
     assert np.array_equal(got, model)
-
-
-def test_pallas_batched_omega2_matches_single(monkeypatch):
-    """multiply_batch and apply_galois_batch with omega=2 keys route the
-    grouped residues through keyswitch_fused_batch's prereduced lane —
-    element i must be bit-exact with the single-ct omega=2 path."""
-    import jax.random as jrandom
-    from fhe_tpu.scheme import bfv
-    from fhe_tpu.scheme.context import make_context
-    import sys
-    sys.path.insert(0, __file__.rsplit("/", 1)[0])
-    from test_pallas import _patch_interpret
-
-    _patch_interpret(monkeypatch, (
-        "ntt_forward", "ntt_inverse", "tensor_product",
-        "tensor_product_batch", "mul_by_ntt_operand", "keyswitch_fused",
-        "keyswitch_fused_batch", "ks_inner_batch", "ks_inner_grouped",
-        "decrypt_fused"))
-    params = make_scheme_params(SecurityParams(
-        poly_degree=1024, log_q=120, lambda_=0, hamming_weight=8,
-        ks_omega=2))
-    ctx = make_context(params, use_pallas=True, use_mxu=False)
-    ctx_ref = make_context(params, use_pallas=False, use_mxu=False)
-    key = jrandom.PRNGKey(61)
-    pk, sk = bfv.keygen(ctx_ref, jrandom.fold_in(key, 0))
-    rlk = bfv.relinkey_gen(ctx_ref, jrandom.fold_in(key, 1), sk)
-    from fhe_tpu.scheme.encoder import BatchEncoder
-    enc = BatchEncoder(params)
-    cts_a = [bfv.encrypt(ctx_ref, jrandom.fold_in(key, 2 + i), pk,
-                         enc.encode([i + 1, i + 5])) for i in range(2)]
-    cts_b = [bfv.encrypt(ctx_ref, jrandom.fold_in(key, 8 + i), pk,
-                         enc.encode([2 * i + 1, 3])) for i in range(2)]
-    outs = bfv.multiply_batch(ctx, cts_a, cts_b, rlk)
-    for i in range(2):
-        want = bfv.multiply(ctx, cts_a[i], cts_b[i], rlk)
-        np.testing.assert_array_equal(
-            np.asarray(outs[i].data), np.asarray(want.data)), i
-        dec = enc.decode(bfv.decrypt(ctx_ref, outs[i], sk))
-        assert list(dec[:2]) == [(i + 1) * (2 * i + 1), (i + 5) * 3], i
-
-    g = pow(3, 1, 2 * params.n)
-    gal = bfv.galoiskey_gen(ctx_ref, jrandom.fold_in(key, 20), sk,
-                            elements=(g,))
-    routs = bfv.apply_galois_batch(ctx, cts_a, g, gal)
-    for i in range(2):
-        want = bfv.apply_galois(ctx, cts_a[i], g, gal)
-        np.testing.assert_array_equal(
-            np.asarray(routs[i].data), np.asarray(want.data)), i
-
-
-def test_pallas_prereduced_keyswitch_matches_composed(monkeypatch):
-    """The fused keyswitch kernel's prereduced lane (grouped digits) must be
-    bit-exact with the composed non-pallas omega=2 path."""
-    import jax.random as jrandom
-    from fhe_tpu.scheme import bfv
-    from fhe_tpu.scheme.context import make_context
-    import sys
-    sys.path.insert(0, __file__.rsplit("/", 1)[0])
-    from test_pallas import _patch_interpret
-
-    _patch_interpret(monkeypatch, (
-        "ntt_forward", "ntt_inverse", "tensor_product",
-        "mul_by_ntt_operand", "keyswitch_fused", "ks_inner_batch",
-        "ks_inner_grouped", "decrypt_fused"))
-    params = make_scheme_params(SecurityParams(
-        poly_degree=1024, log_q=120, lambda_=0, hamming_weight=8,
-        ks_omega=2))
-    ctx = make_context(params, use_pallas=True, use_mxu=False)
-    ctx_ref = make_context(params, use_pallas=False, use_mxu=False)
-    key = jrandom.PRNGKey(59)
-    pk, sk = bfv.keygen(ctx_ref, jrandom.fold_in(key, 0))
-    rlk = bfv.relinkey_gen(ctx_ref, jrandom.fold_in(key, 1), sk)
-    from fhe_tpu.scheme.encoder import BatchEncoder
-    enc = BatchEncoder(params)
-    a = bfv.encrypt(ctx_ref, jrandom.fold_in(key, 2), pk,
-                    enc.encode([5, 10]))
-    b = bfv.encrypt(ctx_ref, jrandom.fold_in(key, 3), pk,
-                    enc.encode([3, 6]))
-    prod = bfv.multiply_no_relin(ctx_ref, a, b)
-    rel_pl = bfv.relinearize(ctx, prod, rlk)
-    rel_ref = bfv.relinearize(ctx_ref, prod, rlk)
-    np.testing.assert_array_equal(np.asarray(rel_pl.data),
-                                  np.asarray(rel_ref.data))
-    got = enc.decode(bfv.decrypt(ctx_ref, rel_pl, sk))
-    assert list(got[:2]) == [15, 60], got[:2]

@@ -5,8 +5,8 @@ switched down on the fly (bfv._switch_keys_down)."""
 import numpy as np
 import pytest
 
-from fhe_tpu import FHE
-from fhe_tpu.params import SecurityParams, make_scheme_params
+from fhe_jax import FHE
+from fhe_jax.params import SecurityParams, make_scheme_params
 
 PARAMS = make_scheme_params(
     SecurityParams(poly_degree=256, log_q=150, hamming_weight=32))  # k=5
@@ -77,7 +77,7 @@ def test_rotation_at_level(setup):
 def test_relin_key_cache_consistency(setup):
     """Cached down-switched keys must give the same result as on-the-fly."""
     fhe, pk, sk, rlk = setup
-    from fhe_tpu.scheme import bfv as _bfv
+    from fhe_jax.scheme import bfv as _bfv
     ct1 = fhe.mod_switch_to_next(fhe.encrypt(fhe.encode([5, 6]), pk))
     ct2 = fhe.mod_switch_to_next(fhe.encrypt(fhe.encode([7, 8]), pk))
     via_cache = fhe.multiply(ct1, ct2, rlk)           # FHE wrapper path

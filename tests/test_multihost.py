@@ -1,58 +1,34 @@
-"""Execute the multi-host (jax.distributed, DCN) path once, for real.
+"""Execute the multi-process (jax.distributed) path once, for real.
 
-VERDICT r3 missing #4: scripts/multihost_bench.py had never run anywhere.
-This test spawns TWO localhost processes, each with 2 virtual CPU devices,
-initializes jax.distributed between them, and runs the data-parallel
+This test has scripts/multihost_bench.py launch TWO localhost processes
+(its one-process-per-card launcher), each with 2 virtual CPU devices,
+initialize jax.distributed between them, and run the data-parallel
 multiply benchmark end-to-end (4 global devices, decrypt-checked on the
-first shard).  Reference context: the reference claims multi-GPU scaling
-in /root/reference/docs/ARCHITECTURE.md:499-511 with no implementation.
+first shard).  The reference claims multi-GPU scaling in its
+docs/ARCHITECTURE.md:499-511 with no implementation.
 """
 
 import json
 import os
-import socket
 import subprocess
 import sys
-
-import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPT = os.path.join(REPO, "scripts", "multihost_bench.py")
 
 
-def _free_port() -> int:
-    s = socket.socket()
-    s.bind(("127.0.0.1", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
-
-
 def test_two_process_localhost_smoke(tmp_path):
-    port = _free_port()
     out_file = tmp_path / "multihost.json"
     env = dict(os.environ)
     env["JAX_PLATFORMS"] = "cpu"
     env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=2"
     env.pop("PYTEST_CURRENT_TEST", None)
-
-    def spawn(host_id: int):
-        cmd = [sys.executable, SCRIPT,
-               f"--coordinator=127.0.0.1:{port}",
-               "--num-hosts=2", f"--host-id={host_id}",
-               "--n=1024", "--batch-per-chip=1"]
-        if host_id == 0:
-            cmd.append(f"--out={out_file}")
-        return subprocess.Popen(
-            cmd, env=env, cwd=REPO,
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-
-    p0 = spawn(0)
-    p1 = spawn(1)
-    out0, _ = p0.communicate(timeout=1100)
-    out1, _ = p1.communicate(timeout=120)
-    assert p0.returncode == 0, f"host0 failed:\n{out0[-4000:]}"
-    assert p1.returncode == 0, f"host1 failed:\n{out1[-4000:]}"
+    proc = subprocess.run(
+        [sys.executable, SCRIPT, "--local-processes=2", "--n=1024",
+         "--batch-per-chip=1", f"--out={out_file}"],
+        env=env, cwd=REPO, capture_output=True, text=True, timeout=1100)
+    assert proc.returncode == 0, (
+        f"launcher failed:\n{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
 
     rec = json.loads(out_file.read_text())
     assert rec["processes"] == 2

@@ -1,13 +1,13 @@
 """Native C++ host runtime vs pure-Python equivalence.
 
 The C++ library (native/fhecore.cpp) must be bit-identical with
-fhe_tpu.primes / the table builder in fhe_tpu.ops.ntt.  Skipped when the
+fhe_jax.primes / the table builder in fhe_jax.ops.ntt.  Skipped when the
 shared library is not built AND cannot be auto-built (no compiler)."""
 
 import numpy as np
 import pytest
 
-from fhe_tpu.utils import native
+from fhe_jax.utils import native
 
 
 pytestmark = pytest.mark.skipif(
@@ -21,7 +21,7 @@ def _python_only(monkeypatch):
 
 
 def test_is_prime_agrees(monkeypatch):
-    from fhe_tpu import primes
+    from fhe_jax import primes
     cases = [0, 1, 2, 3, 4, 65536, 65537, 12289, 40961,
              (1 << 30) - 35, (1 << 30) - 41, 999999937, 2**61 - 1]
     got_native = [primes.is_prime(x) for x in cases]
@@ -31,7 +31,7 @@ def test_is_prime_agrees(monkeypatch):
 
 
 def test_find_ntt_primes_agrees(monkeypatch):
-    from fhe_tpu import primes
+    from fhe_jax import primes
     a = primes.find_ntt_primes(2048, 5, bits=30, exclude=(65537,))
     _python_only(monkeypatch)
     b = primes.find_ntt_primes(2048, 5, bits=30, exclude=(65537,))
@@ -46,7 +46,7 @@ def test_find_ntt_primes_exhaustion():
 
 
 def test_negacyclic_psi_agrees(monkeypatch):
-    from fhe_tpu import primes
+    from fhe_jax import primes
     p = primes.find_ntt_primes(512, 1, bits=30)[0]
     a = primes.negacyclic_psi(512, p)
     _python_only(monkeypatch)
@@ -55,8 +55,8 @@ def test_negacyclic_psi_agrees(monkeypatch):
 
 
 def test_ntt_tables_bit_identical(monkeypatch):
-    import fhe_tpu.ops.ntt as nttmod
-    from fhe_tpu import primes
+    import fhe_jax.ops.ntt as nttmod
+    from fhe_jax import primes
     n = 512
     ps = tuple(primes.find_ntt_primes(n, 3, bits=30))
     nttmod._build_tables_np.cache_clear()

@@ -9,8 +9,8 @@ deliberately-exhausted ciphertext (the round-1 estimator blind spot).
 import numpy as np
 import pytest
 
-from fhe_tpu import FHE
-from fhe_tpu.params import SecurityParams, make_scheme_params
+from fhe_jax import FHE
+from fhe_jax.params import SecurityParams, make_scheme_params
 
 # Predicted-vs-measured tolerance in bits.  The model is expected-case
 # (central limit); the measurement is a max over n coefficients, so the
@@ -138,8 +138,7 @@ def test_exact_budget_aliasing_window_bgv():
     (0, "bfv"), (1, "bgv"), (2, "bfv"), (3, "bgv"), (7, "bfv"), (11, "bgv"),
 ])
 def test_tracked_budget_soundness_under_exhaustion(seed, scheme):
-    """SOUNDNESS sweep (VERDICT r4 next-step #5, the round-1 fuzzer FAIL
-    regime): repeated squarings in a shallow-q config drive the ciphertext
+    """SOUNDNESS sweep (the regime of the one historical fuzzer FAIL): repeated squarings in a shallow-q config drive the ciphertext
     past exhaustion; at every depth, a wrong decryption MUST come with the
     tracked budget pinned at 0 (the tracked variance model — not the
     measured estimate, which aliases past q/2 — is the library's

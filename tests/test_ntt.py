@@ -8,8 +8,8 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from fhe_tpu import oracle, primes
-from fhe_tpu.ops import ntt
+from fhe_jax import oracle, primes
+from fhe_jax.ops import ntt
 
 # jit once per shape: eager dispatch on this 1-core box is pathologically slow
 fwd = jax.jit(ntt.ntt_forward)
@@ -88,8 +88,8 @@ def test_tables_build_at_max_degree():
     tables must build and round-trip (k=1 to keep CI time sane)."""
     import numpy as np
     import jax.numpy as jnp
-    from fhe_tpu import primes as _primes
-    from fhe_tpu.ops import ntt as _ntt
+    from fhe_jax import primes as _primes
+    from fhe_jax.ops import ntt as _ntt
 
     n = 32768
     p = _primes.find_ntt_primes(n, 1, bits=30)[0]
@@ -98,3 +98,47 @@ def test_tables_build_at_max_degree():
     x = jnp.asarray(rng.integers(0, p, size=(1, 1, n)).astype(np.uint32))
     rt = _ntt.ntt_inverse(_ntt.ntt_forward(x, tb), tb)
     assert np.array_equal(rt, x)
+
+
+# Larger rings, one prime each at n >= 4096 so the pure-Python oracle stays
+# cheap; (n, k, batch) up to n = 32768, the largest batching degree.
+ORACLE_SHAPES = [(512, 3, 2), (1024, 2, 1), (4096, 1, 2), (8192, 1, 1),
+                 (32768, 1, 1)]
+
+
+def _oracle_rows(ps, a, fn):
+    return np.stack([
+        np.stack([np.array(fn([int(x) for x in a[i, j]],
+                              oracle.build_ntt_tables(a.shape[2], p)),
+                           dtype=np.uint32) for j in range(a.shape[1])])
+        for i, p in enumerate(ps)])
+
+
+@pytest.mark.parametrize("n,k,batch", ORACLE_SHAPES)
+def test_forward_vs_oracle_large(n, k, batch):
+    ps, tb, a = make(n, k, batch)
+    got = np.asarray(fwd(jnp.asarray(a), tb))
+    np.testing.assert_array_equal(got, _oracle_rows(ps, a, oracle.ntt_forward))
+
+
+@pytest.mark.parametrize("n,k,batch", ORACLE_SHAPES)
+def test_inverse_vs_oracle_large(n, k, batch):
+    ps, tb, a = make(n, k, batch)
+    got = np.asarray(inv(jnp.asarray(a), tb))
+    np.testing.assert_array_equal(got, _oracle_rows(ps, a, oracle.ntt_inverse))
+
+
+@pytest.mark.parametrize("n,k,batch", ORACLE_SHAPES[:4])
+def test_polymul_vs_oracle_transforms(n, k, batch):
+    """polymul == oracle inverse of the pointwise product of oracle forwards
+    (the schoolbook oracle is quadratic, too slow past a few hundred)."""
+    ps, tb, a = make(n, k, batch)
+    _, _, b = make(n, k, batch)
+    b = np.stack([bb % p for bb, p in zip(b, ps)])
+    got = np.asarray(pmul(jnp.asarray(a), jnp.asarray(b), tb))
+    fa = _oracle_rows(ps, a, oracle.ntt_forward).astype(np.uint64)
+    fb = _oracle_rows(ps, b, oracle.ntt_forward).astype(np.uint64)
+    prod = (fa * fb % np.array(ps, dtype=np.uint64)[:, None, None]
+            ).astype(np.uint32)
+    np.testing.assert_array_equal(
+        got, _oracle_rows(ps, prod, oracle.ntt_inverse))

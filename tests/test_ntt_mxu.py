@@ -6,9 +6,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from fhe_tpu import primes as _primes
-from fhe_tpu.ops import ntt as _ntt
-from fhe_tpu.ops import ntt_mxu as _mxu
+from fhe_jax import primes as _primes
+from fhe_jax.ops import ntt as _ntt
+from fhe_jax.ops import ntt_mxu as _mxu
 
 
 @pytest.fixture(scope="module", params=[256, 1024])
@@ -69,18 +69,18 @@ def test_scheme_multiply_mxu_dispatch_bit_exact():
     """The production multiply with use_mxu=True must be bit-exact with the
     CT-engine multiply (round-1 review item 4: integrate the MXU NTT)."""
     import jax.random as jrandom
-    from fhe_tpu.params import SecurityParams, make_scheme_params
-    from fhe_tpu.scheme import bfv
-    from fhe_tpu.scheme.context import make_context
+    from fhe_jax.params import SecurityParams, make_scheme_params
+    from fhe_jax.scheme import bfv
+    from fhe_jax.scheme.context import make_context
 
     params = make_scheme_params(SecurityParams(
         poly_degree=256, log_q=90, lambda_=0, hamming_weight=8))
-    ctx_ref = make_context(params, use_pallas=False, use_mxu=False)
-    ctx_mxu = make_context(params, use_pallas=False, use_mxu=True)
+    ctx_ref = make_context(params)
+    ctx_mxu = make_context(params, use_mxu=True)
     key = jrandom.PRNGKey(9)
     k1, k2, k3, k4 = jrandom.split(key, 4)
     pk, sk = jax.jit(bfv.keygen)(ctx_ref, k1)
-    from fhe_tpu.scheme.encoder import BatchEncoder
+    from fhe_jax.scheme.encoder import BatchEncoder
     enc = BatchEncoder(params)
     ct1 = jax.jit(bfv.encrypt)(ctx_ref, k2, pk, enc.encode([5, 10, 15, 20]))
     ct2 = jax.jit(bfv.encrypt)(ctx_ref, k3, pk, enc.encode([3, 6, 9, 12]))
@@ -91,10 +91,9 @@ def test_scheme_multiply_mxu_dispatch_bit_exact():
 
 def test_ntt_16384_roundtrip_jnp():
     """n = 16384 (the reference's declared maximum, docs/API_REFERENCE.md:62)
-    round-trips on the stage-sweep engine; the TPU bench exercises the fused
-    kernels at this size on device."""
-    from fhe_tpu import primes as _primes
-    from fhe_tpu.ops import ntt as _ntt2
+    round-trips on the stage-sweep engine."""
+    from fhe_jax import primes as _primes
+    from fhe_jax.ops import ntt as _ntt2
     n = 16384
     ps = _primes.find_ntt_primes(n, 1)
     tb = _ntt2.build_tables(n, ps)

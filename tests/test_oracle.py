@@ -9,8 +9,8 @@ import random
 
 import pytest
 
-from fhe_tpu import oracle, primes
-from fhe_tpu.params import SecurityParams, make_scheme_params
+from fhe_jax import oracle, primes
+from fhe_jax.params import SecurityParams, make_scheme_params
 
 
 def small_params(n=64, log_q=60):
@@ -277,7 +277,7 @@ def test_behz_multiply_matches_textbook_semantics():
 def test_bgv_oracle_mod_switch_decrypt():
     """BGVOracle.decrypt(q=...) must decrypt the output of its own
     mod_switch_drop_last (review finding: it used to reduce mod full q)."""
-    from fhe_tpu.params import SecurityParams, make_scheme_params
+    from fhe_jax.params import SecurityParams, make_scheme_params
 
     params = make_scheme_params(
         SecurityParams(poly_degree=64, log_q=120, hamming_weight=8))

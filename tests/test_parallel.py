@@ -11,12 +11,12 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from fhe_tpu import FHE, primes
-from fhe_tpu.params import SecurityParams, make_scheme_params
-from fhe_tpu.ops import ntt as _ntt
-from fhe_tpu.parallel import mesh as _mesh
-from fhe_tpu.parallel import distributed_ntt as dntt
-from fhe_tpu.scheme import bfv
+from fhe_jax import FHE, primes
+from fhe_jax.params import SecurityParams, make_scheme_params
+from fhe_jax.ops import ntt as _ntt
+from fhe_jax.parallel import mesh as _mesh
+from fhe_jax.parallel import distributed_ntt as dntt
+from fhe_jax.scheme import bfv
 
 RNG = np.random.default_rng(5)
 
@@ -117,7 +117,7 @@ def test_batch_vmap_ciphertexts(eight_devices):
 def test_sharded_fhe_wrapper(eight_devices):
     """ShardedFHE convenience API: prime-axis-sharded multiply is bit-exact
     with the single-device result."""
-    from fhe_tpu.parallel.sharded import ShardedFHE
+    from fhe_jax.parallel.sharded import ShardedFHE
 
     params = make_scheme_params(
         SecurityParams(poly_degree=128, log_q=240, hamming_weight=16))
@@ -141,7 +141,7 @@ def test_sharded_fhe_wrapper(eight_devices):
 def test_sharded_container_dispatch(eight_devices):
     """shard() on containers must keep the digit-axis layout for key
     material nested inside (review finding)."""
-    from fhe_tpu.parallel.sharded import ShardedFHE
+    from fhe_jax.parallel.sharded import ShardedFHE
 
     params = make_scheme_params(
         SecurityParams(poly_degree=128, log_q=240, hamming_weight=16))
@@ -167,8 +167,7 @@ def test_distributed_ntt_rejects_non_power_of_two(eight_devices):
 
 @pytest.mark.parametrize("n,shards", [(2048, 4), (32768, 8)])
 def test_multiply_relin_coeff_sharded(eight_devices, n, shards):
-    """Scheme-level COEFFICIENT-sharded multiply+relin (SURVEY §7 stage 7 /
-    VERDICT r3 next-step #5): the BEHZ conversions and key-switch inner
+    """Scheme-level COEFFICIENT-sharded multiply+relin (SURVEY §7 stage 7): the BEHZ conversions and key-switch inner
     product run shard-local; only the distributed NTTs' ppermute stages
     communicate.  Bit-exact vs the single-device jnp-engine multiply, and
     decrypt-correct — including n=32768, past the reference's declared max

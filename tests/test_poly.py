@@ -6,11 +6,11 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from fhe_tpu import primes as _primes
-from fhe_tpu.ops import modmath as mm
-from fhe_tpu.ops import ntt as _ntt
-from fhe_tpu.ops import poly as _poly
-from fhe_tpu.ops import rns as _rns
+from fhe_jax import primes as _primes
+from fhe_jax.ops import modmath as mm
+from fhe_jax.ops import ntt as _ntt
+from fhe_jax.ops import poly as _poly
+from fhe_jax.ops import rns as _rns
 
 N = 64
 K = 2

@@ -7,8 +7,8 @@ suite has — any kernel/scheme regression shows up as a slot mismatch."""
 import numpy as np
 import pytest
 
-from fhe_tpu import FHE
-from fhe_tpu.params import SecurityParams, make_scheme_params
+from fhe_jax import FHE
+from fhe_jax.params import SecurityParams, make_scheme_params
 
 PARAMS = make_scheme_params(
     SecurityParams(poly_degree=256, log_q=150, hamming_weight=32))

@@ -1,5 +1,5 @@
-"""Cross-op NTT-form residency (reference include/fhe.cuh:68 `is_ntt_form`;
-VERDICT r4 next-step #3): eval-domain ciphertexts flow through the plain
+"""Cross-op NTT-form residency (reference include/fhe.cuh:68 `is_ntt_form`):
+eval-domain ciphertexts flow through the plain
 ops without per-op INTT+NTT round trips, bit-exact with the coefficient
 path, and the FHE wrapper caches NTT-form plaintext operands per
 (Plaintext, level)."""
@@ -7,8 +7,8 @@ path, and the FHE wrapper caches NTT-form plaintext operands per
 import numpy as np
 import pytest
 
-from fhe_tpu import FHE
-from fhe_tpu.params import SecurityParams, make_scheme_params
+from fhe_jax import FHE
+from fhe_jax.params import SecurityParams, make_scheme_params
 
 
 @pytest.fixture(scope="module", params=["bfv", "bgv"])

@@ -11,9 +11,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from fhe_tpu import oracle, primes
-from fhe_tpu.params import SecurityParams, make_scheme_params
-from fhe_tpu.ops import rns
+from fhe_jax import oracle, primes
+from fhe_jax.params import SecurityParams, make_scheme_params
+from fhe_jax.ops import rns
 
 RNG = np.random.default_rng(21)
 N, B = 32, 2

@@ -4,8 +4,8 @@ SURVEY.md §5 'Checkpoint / resume')."""
 import numpy as np
 import pytest
 
-from fhe_tpu import FHE
-from fhe_tpu.utils import serialize
+from fhe_jax import FHE
+from fhe_jax.utils import serialize
 
 
 @pytest.fixture(scope="module")
@@ -51,7 +51,7 @@ def test_loaded_keys_decrypt(tmp_path, small_fhe):
 
 
 def test_params_roundtrip(tmp_path):
-    from fhe_tpu.params import SecurityParams, make_scheme_params
+    from fhe_jax.params import SecurityParams, make_scheme_params
     p = make_scheme_params(SecurityParams(poly_degree=256, log_q=60))
     path = tmp_path / "p.npz"
     serialize.save(path, {"params": p})
@@ -88,13 +88,13 @@ def test_bootstrap_key_roundtrips(tmp_path):
     """RGSW bootstrap keys persist (production workflows generate them once
     per secret key)."""
     import jax.random as jrandom
-    from fhe_tpu.params import SecurityParams, make_scheme_params
-    from fhe_tpu.scheme import bfv, bootstrap
-    from fhe_tpu.scheme.context import make_context
+    from fhe_jax.params import SecurityParams, make_scheme_params
+    from fhe_jax.scheme import bfv, bootstrap
+    from fhe_jax.scheme.context import make_context
 
     params = make_scheme_params(SecurityParams(
         poly_degree=64, log_q=60, lambda_=0, hamming_weight=8))
-    ctx = make_context(params, use_pallas=False, use_mxu=False)
+    ctx = make_context(params)
     kg, kb = jrandom.split(jrandom.PRNGKey(0))
     _, sk = bfv.keygen(ctx, kg)
     bsk = bootstrap.make_bootstrap_key(ctx, kb, sk)

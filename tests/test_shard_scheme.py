@@ -1,6 +1,6 @@
 """Explicit shard_map scheme path: bit-exactness + collective accounting.
 
-The VERDICT-r2 gap: the rns-sharded scheme ops ran through GSPMD
+Without it the rns-sharded scheme ops run through GSPMD
 auto-partitioning with uncontrolled collectives.  These tests pin the
 explicit path (parallel/shard_scheme.py): value-exact against the
 single-device BEHZ multiply, and the collective op *counts* asserted from
@@ -14,11 +14,11 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from fhe_tpu import FHE
-from fhe_tpu.params import SecurityParams, make_scheme_params
-from fhe_tpu.parallel import mesh as _mesh
-from fhe_tpu.parallel import shard_scheme
-from fhe_tpu.scheme import bfv
+from fhe_jax import FHE
+from fhe_jax.params import SecurityParams, make_scheme_params
+from fhe_jax.parallel import mesh as _mesh
+from fhe_jax.parallel import shard_scheme
+from fhe_jax.scheme import bfv
 
 
 @pytest.fixture(scope="module")
@@ -61,7 +61,7 @@ def test_shardmap_rejects_uneven_k(eight_devices):
 
 
 def test_multiply_relin_shardmap_leveled(eight_devices):
-    """The explicit path at level 1 (VERDICT r3 next-step #7): level-0 keys
+    """The explicit path at level 1: level-0 keys
     mod-switched down inside, bit-exact vs the single-device leveled
     multiply."""
     fhe, sk, rlk, ct1, ct2 = _setup(5)
@@ -80,7 +80,7 @@ def test_sharded_fhe_routes_explicit_path(eight_devices):
     """ShardedFHE.multiply is the production distributed default: it must
     route through multiply_relin_shardmap when the mesh has the rns axis
     (and fall back cleanly when the prime count does not divide)."""
-    from fhe_tpu.parallel.sharded import ShardedFHE
+    from fhe_jax.parallel.sharded import ShardedFHE
 
     fhe, sk, rlk, ct1, ct2 = _setup(4)
     mesh = _mesh.make_mesh({"rns": 4}, eight_devices[:4])
@@ -163,7 +163,7 @@ def test_psum_mod_exactness(eight_devices):
     for worst-case residues (all devices holding p-1)."""
     from jax import shard_map
     from jax.sharding import PartitionSpec as P
-    import fhe_tpu.ops.modmath as mm
+    import fhe_jax.ops.modmath as mm
 
     p = 1073479681  # 30-bit NTT prime
     sh16 = mm.shoup_precompute(1 << 16, p)
